@@ -1,8 +1,9 @@
-"""shud_tpu — a TPU-native watershed hydrology framework.
+"""shud_tpu — a JAX watershed hydrology framework.
 
 A from-scratch JAX/XLA reimplementation of the capabilities of the SHUD-up
 reference model (physically-based, fully-coupled, distributed watershed
-hydrology on an unstructured triangular mesh), redesigned for TPU:
+hydrology on an unstructured triangular mesh), redesigned for
+accelerators:
 
 * the semi-discrete FVM right-hand side is a single pure, jittable function
   built from gathers over static neighbor index arrays and ``segment_sum``
@@ -10,7 +11,7 @@ hydrology on an unstructured triangular mesh), redesigned for TPU:
 * CVODE's adaptive BDF (reference: ``src/Equations/cvode_config.cpp``) is
   replaced by a jittable adaptive implicit multistep solver with
   Newton–Krylov inner iterations driven by exact JVPs;
-* multi-chip scaling uses ``jax.sharding``/``shard_map`` domain decomposition
+* multi-device scaling uses ``jax.sharding``/``shard_map`` domain decomposition
   of the cell axis with ghost-ring halo exchange (the reference's only
   parallelism is OpenMP threads, ``src/ModelData/MD_f_omp.cpp``).
 

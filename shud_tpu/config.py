@@ -2,9 +2,8 @@
 
 The prognostic heads require f64-class precision (CVODE-class tolerances of
 1e-4 m against elevations of ~1e3 m); diagnostics and forcing can be f32.
-On TPU, f64 is software-emulated, so the performance path offers an f32 mode
-that relies on precomputed neighbour elevation *differences* (local-datum
-trick) — see ``shud_tpu.core.mesh``.
+The f32 mode moves half the bytes and relies on precomputed neighbour
+elevation *differences* (local-datum trick) — see ``shud_tpu.core.mesh``.
 """
 
 from __future__ import annotations

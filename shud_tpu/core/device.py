@@ -31,9 +31,9 @@ def device_get_global(tree):
     Single process: a plain ``device_get``.  Multi-process
     (``jax.distributed``): globally-sharded arrays are not addressable per
     process, so the tree is first passed through a jitted identity with
-    fully-REPLICATED out-shardings (one XLA all-gather over ICI/DCN — the
-    ``multihost_utils.process_allgather`` pattern), after which every
-    process holds complete copies and ``device_get`` is legal.  This is
+    fully-REPLICATED out-shardings (one XLA all-gather across devices and
+    hosts — the ``multihost_utils.process_allgather`` pattern), after which
+    every process holds complete copies and ``device_get`` is legal.  This is
     the multi-host interval fetch of the sharded production driver (the
     reference has no analogue — its parallel mode is shared-memory OpenMP,
     shud.cpp:56-64)."""
@@ -64,11 +64,6 @@ def to_device(md: MeshData, float_dtype=jnp.float64) -> MeshData:
         raw = getattr(md, name)
         if raw is None:
             kwargs[name] = None
-            continue
-        if name == "edge_blocks":
-            from shud_tpu.core.pallas_edge import edge_blocks_to_device
-
-            kwargs[name] = edge_blocks_to_device(raw)
             continue
         v = np.asarray(raw)
         if np.issubdtype(v.dtype, np.floating):

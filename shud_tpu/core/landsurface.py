@@ -71,9 +71,8 @@ def cell_forcing(
     # wires the PM path in tReadForcing; here all three are functional.
 ) -> CellForcing:
     # Station/class lookups are per-cell gathers from TINY tables with
-    # STATIC indices.  XLA's generic gather costs ~per-index overhead on TPU
-    # (measured ~5 ms per gather at 1M cells — it dominated the forcing
-    # transform); a one-hot contraction is fused VPU work instead.
+    # STATIC indices; a one-hot contraction turns each into fused
+    # elementwise work instead of a generic gather.
     def _onehot_pick(table, idx0):
         """table[idx0] via one-hot: [K,...] table, [Ne] static indices."""
         k = table.shape[0]

@@ -161,9 +161,6 @@ class MeshData:
     # nbv[i,j] = roll(x, -offsets[k])[i] where k = roll_k_idx[i,j]
     roll_offsets: tuple = None  # (K,) python ints (STATIC), or None
     roll_k_idx: np.ndarray = None  # [Ne,3] int32 index into offsets
-    # blocked tables for the fused Pallas edge kernel (core/pallas_edge.py);
-    # built on demand by enable_pallas_edges(); None = use XLA gather/roll
-    edge_blocks: object = None
 
 
 def build_mesh(inp: ProjectInput) -> MeshData:
@@ -426,7 +423,7 @@ def build_mesh(inp: ProjectInput) -> MeshData:
 
     # roll-gather precompute: if the neighbour offsets (nb - i) take few
     # distinct values (structured meshes), gathers become K rolls + selects
-    # — the dominant RHS cost on TPU at large Ne
+    # in place of a generic gather
     nabr0f = np.where(nabr1 > 0, nabr1 - 1, -1)
     offsets = np.where(nabr0f >= 0, nabr0f - np.arange(ne)[:, None], 0)
     uoff = np.unique(offsets[nabr0f >= 0])

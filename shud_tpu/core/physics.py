@@ -4,7 +4,7 @@ Every function here is a direct, branch-for-branch vectorisation of the
 reference equation library (``src/Equations/Equations.cpp``,
 ``src/classes/Element.cpp``, ``src/Equations/Flux_RiverElement.cpp``,
 ``src/ModelData/MD_RiverFlux.cpp``).  Branches become ``jnp.where`` chains in
-the same order, so the TPU build is pointwise-identical to the C++ (verified
+the same order, so the JAX build is pointwise-identical to the C++ (verified
 at 1e-12 by tests/test_rhs.py against the compiled reference oracle).
 """
 

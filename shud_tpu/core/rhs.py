@@ -175,15 +175,11 @@ def edge_fluxes(m, cu: CellUpdate, sf, gw, lake_stg, close_boundary: bool,
     segment-summed into per-lake totals (no fu_sub factor, matching the
     reference asymmetry at MD_ElementFlux.cpp:122 vs :153).
 
-    Three gather strategies:
-    * pallas (when ``m.edge_blocks`` is set, f32, not exact_parity): the
-      fused Pallas TPU kernel (core/pallas_edge.py) — banded in-VMEM gather
-      + full flux law in one kernel; interior/boundary branches in-kernel,
-      lake-bank branch merged here by mask;
+    Two gather strategies:
     * fast (default): ONE stacked gather of the dynamic neighbour fields
-      (sf, gw, effKH) — TPU gathers are the RHS bottleneck at scale, and
-      head differences use f64-precomputed edge dz (also what makes the
-      f32 mode accurate);
+      (sf, gw, effKH), or K rolls when the mesh is a structured grid
+      (``m.roll_offsets``); head differences use f64-precomputed edge dz
+      (also what makes the f32 mode accurate);
     * exact_parity: separate gathers with the reference's exact operation
       order (bit-parity against the C++ oracle; used by the golden tests).
     """
@@ -193,51 +189,6 @@ def edge_fluxes(m, cu: CellUpdate, sf, gw, lake_stg, close_boundary: bool,
     has_lake = lakenb >= 0
     nb = jnp.where(has_nabr, nabr, 0)
     lk = jnp.where(has_lake, lakenb, 0)
-
-    use_pallas = (
-        getattr(m, "edge_blocks", None) is not None
-        and not exact_parity
-        and sf.dtype == jnp.float32
-    )
-    if use_pallas:
-        from shud_tpu.core.pallas_edge import edge_fluxes_pallas
-
-        q_surf_k, q_sub_k = edge_fluxes_pallas(
-            m.edge_blocks, sf, gw, cu.eff_kh, close_boundary=close_boundary
-        )
-        if lake_stg.shape[0] == 0:
-            z3 = jnp.zeros_like(q_surf_k)
-            return q_surf_k, q_sub_k, z3, z3
-        # lake-bank branch (few edges): same math as below, with the one
-        # neighbour field it needs (effKH of the lake cell) gathered here.
-        # Local-datum forms throughout (this path is f32-only): the
-        # km-scale elevations are cancelled once in f64 at mesh build
-        # (edge_lake_dzl/edge_lake_dzb), like edge_dz_surf for interior
-        # edges.
-        isf = jnp.maximum(sf, 0.0)[:, None]
-        B = m.edge
-        dist = jnp.where(has_nabr, m.dist2nabor, 1.0)
-        effkh_nb_l = cu.eff_kh[nb]
-        lake_nsf = jnp.maximum(lake_stg[lk], 0.0)
-        q_surf_lake = ph.weir_flow_jtoi_local(
-            lake_nsf + m.edge_lake_dzl, isf, lake_nsf, 0.6, B, 0.01,
-        )
-        gw_col = gw[:, None]
-        dh_lk = (gw_col - lake_stg[lk]) + m.edge_lake_dzb
-        ymean_lk = ph.avg_y_gw(gw_col, lake_stg[lk])
-        grad_lk = dh_lk / dist
-        kmean_lk = 0.5 * (cu.eff_kh[:, None] + effkh_nb_l)
-        q_sub_lake = kmean_lk * grad_lk * ymean_lk * B
-        q_sub_lake = jnp.where(
-            ((dh_lk > 0.0) & (gw_col <= 0.02))
-            | ((dh_lk < 0.0) & (lake_stg[lk] <= 0.02)),
-            0.0,
-            q_sub_lake,
-        )
-        q_surf = jnp.where(has_lake, q_surf_lake, q_surf_k)
-        q_sub = jnp.where(has_lake, q_sub_lake, q_sub_k)
-        return (q_surf, q_sub, jnp.where(has_lake, q_surf, 0.0),
-                jnp.where(has_lake, q_sub, 0.0))
 
     low_prec = (sf.dtype == jnp.float32) or not exact_parity
 

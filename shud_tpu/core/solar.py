@@ -4,7 +4,7 @@ Reimplements the reference's NOAA-style solar position
 (``src/Equations/SolarRadiation.cpp:95-180``) and the per-forcing-interval
 cosZ-weighted equivalent terrain factor (``src/ModelData/MD_ET.cpp:62-204``)
 as vectorised jnp code.  The per-interval solar samples are shared across
-elements (as in the reference's bucket cache); on TPU we precompute them for
+elements (as in the reference's bucket cache); here they are precomputed for
 ALL forcing intervals up front and evaluate the per-cell factor inside the
 jitted step.
 """
@@ -105,8 +105,8 @@ def interval_samples(
     doy = doy_tab[day_idx]
 
     # host-side precompute MUST run on a LOCAL CPU device: eager per-op
-    # dispatch to a (possibly remote) TPU would turn this setup step into
-    # minutes, and under multi-process execution jax.devices() includes
+    # dispatch to an accelerator would turn this setup step into minutes,
+    # and under multi-process execution jax.devices() includes
     # other ranks' devices whose values this process cannot fetch
     with jax.default_device(jax.local_devices(backend="cpu")[0]):
         cosz, az, _ = solar_position(

@@ -2,7 +2,7 @@
 
 The reference's only parallelism is OpenMP threads over flat arrays
 (``src/ModelData/MD_f_omp.cpp``); there is no distributed mode to port.  The
-TPU design follows SURVEY §5.7: partition the unstructured cell graph into P
+design follows SURVEY §5.7: partition the unstructured cell graph into P
 spatially-compact blocks (recursive coordinate bisection on centroids),
 shard every cell-axis array over a 1-D device mesh, and exchange one ghost
 ring of dynamic per-cell values per RHS evaluation.
@@ -186,10 +186,6 @@ class ShardedMesh:
     plan: ExchangePlan
     # lakes (replicated small tables + sharded per-edge lake ids)
     lake: dict = dataclasses.field(default_factory=dict)
-    # per-shard Pallas edge-kernel blocks (EdgeBlocks with a leading [P]
-    # axis on every array field), or None when a shard's local numbering
-    # is not banded enough — build with shard_order="rcm" then
-    edge_blocks: object = None
 
 
 _CELL_FIELDS = [
@@ -217,73 +213,9 @@ _RIV_PAD = {
 }
 
 
-def _shard_rcm_slots(md: MeshData, part: np.ndarray, p: int,
-                     tile_cells: "int | None" = None):
-    """Per-shard Reverse Cuthill–McKee local slots: minimise each shard's
-    induced-subgraph bandwidth so the Pallas edge kernel's banded-window
-    precondition holds per shard with the smallest possible block size.
-
-    ``tile_cells``: when set, each shard is RCB-split into tiles of about
-    that many cells and RCM runs PER TILE (tiles concatenated in RCB
-    order).  A planar mesh's bandwidth grows as sqrt(cells) — at the
-    10M-cell single-chip design point the full-shard RCM band reaches
-    ~2.3k (37 kernel row-shift iterations); per-tile RCM caps the
-    kernel-visible band at ~2*sqrt(tile_cells) and routes the O(cut)
-    inter-tile edges through the compact local-remainder list instead
-    (the same treatment cross-shard edges already get).
-
-    Returns ``(old_to_slot, tile_of)``; ``tile_of`` is the per-cell tile
-    id within its shard (all zeros when untiled)."""
-    from shud_tpu.utils.reorder import rcm_permutation
-
-    ne = md.num_ele
-    nabr = np.asarray(md.nabr)
-    old_to_slot = np.zeros(ne, dtype=np.int64)
-    tile_of = np.zeros(ne, dtype=np.int64)
-    for q in range(p):
-        cells = np.flatnonzero(part == q)
-        if tile_cells and len(cells) > tile_cells:
-            nt = 1 << int(np.ceil(np.log2(len(cells) / tile_cells)))
-            tpart = rcb_partition(
-                np.asarray(md.x)[cells], np.asarray(md.y)[cells], nt)
-            tile_of[cells] = tpart
-            off = 0
-            for tq in range(nt):
-                tloc = np.flatnonzero(tpart == tq)
-                sub_cells = cells[tloc]  # ascending (flatnonzero order)
-                nb = nabr[sub_cells]
-                pos = np.searchsorted(sub_cells, np.maximum(nb, 0))
-                pos = np.minimum(pos, len(sub_cells) - 1)
-                in_tile = (nb >= 0) & (sub_cells[pos] == nb)
-                sub = np.where(in_tile, pos, -1)
-                perm_t = rcm_permutation(sub)  # perm[new_local] = old_local
-                s = np.empty(len(sub_cells), dtype=np.int64)
-                s[perm_t] = np.arange(len(sub_cells))
-                old_to_slot[sub_cells] = off + s
-                off += len(sub_cells)
-        else:
-            g2l = np.full(ne, -1, dtype=np.int64)
-            g2l[cells] = np.arange(len(cells))
-            sub = np.where(nabr[cells] >= 0,
-                           g2l[np.maximum(nabr[cells], 0)], -1)
-            perm_q = rcm_permutation(sub)  # perm[new_local] = old_local
-            slot_of = np.empty(len(cells), dtype=np.int64)
-            slot_of[perm_q] = np.arange(len(cells))
-            old_to_slot[cells] = slot_of
-    return old_to_slot, tile_of
-
-
-def build_sharded_mesh(md: MeshData, p: int,
-                       shard_order: str = "keep",
-                       tile_cells: "int | None" = None) -> ShardedMesh:
-    """``shard_order``: local slot numbering within each shard —
-    ``"keep"`` (induced global order; bitwise-stable with prior rounds) or
-    ``"rcm"`` (per-shard Reverse Cuthill–McKee, required for the Pallas
-    edge kernel on meshes whose global numbering is not banded).
-
-    ``tile_cells`` (rcm only): per-tile RCM numbering — bounds the edge
-    kernel's band at large single-shard cell counts; inter-tile edges are
-    evaluated on a compact local-remainder list (see _shard_rcm_slots)."""
+def build_sharded_mesh(md: MeshData, p: int) -> ShardedMesh:
+    """Partition *md* into *p* RCB blocks; local slots keep the induced
+    global order (the rank of a cell's id within its shard)."""
     ne = md.num_ele
     part = rcb_partition(md.x, md.y, p)
     sizes = np.bincount(part, minlength=p)
@@ -293,18 +225,12 @@ def build_sharded_mesh(md: MeshData, p: int,
 
     # map old cell id -> (shard, local slot)
     old_to_shard = part.astype(np.int64)
-    tile_of = np.zeros(ne, dtype=np.int64)
-    if shard_order == "rcm":
-        old_to_slot, tile_of = _shard_rcm_slots(md, part, p,
-                                                tile_cells=tile_cells)
-    else:
-        # induced global order: slot = rank of old id within its shard
-        perm0 = np.lexsort((np.arange(ne), part))  # new -> old
-        local_slot = np.empty(ne, dtype=np.int64)
-        for q in range(p):
-            local_slot[offs[q] : offs[q + 1]] = np.arange(sizes[q])
-        old_to_slot = np.empty(ne, dtype=np.int64)
-        old_to_slot[perm0] = local_slot
+    perm0 = np.lexsort((np.arange(ne), part))  # new -> old
+    local_slot = np.empty(ne, dtype=np.int64)
+    for q in range(p):
+        local_slot[offs[q] : offs[q + 1]] = np.arange(sizes[q])
+    old_to_slot = np.empty(ne, dtype=np.int64)
+    old_to_slot[perm0] = local_slot
     # perm/inv_perm: new global id = shard offset + local slot
     new_id = offs[old_to_shard] + old_to_slot
     perm = np.empty(ne, dtype=np.int64)  # new -> old
@@ -493,90 +419,6 @@ def build_sharded_mesh(md: MeshData, p: int,
         "nb_gpos": scatter_edge_tbl(nb_gpos_flat, np.int64),
     }
 
-    # ---- compact cross-shard edge lists (Pallas-mode XLA remainder) ------
-    # The per-shard edge kernel evaluates local-interior and open-boundary
-    # edges; the O(edge-cut) remainder — cross-shard edges (+ lake banks,
-    # below) — is evaluated on these compact lists and mask-merged, so no
-    # dense [Np,3] neighbour gather remains in the kernel path.
-    ci = ii[cross]          # old cell id of each cross edge
-    cj = (np.arange(ne * 3) % 3)[cross]
-    c_shard = old_to_shard[ci]
-    rmt_counts = np.bincount(c_shard, minlength=p)
-    eb_max = max(1, int(rmt_counts.max()) if len(ci) else 1)
-    rmt = {
-        "cell": np.zeros((p, eb_max), np.int64),
-        "slot": np.zeros((p, eb_max), np.int64),
-        "gpos": np.zeros((p, eb_max), np.int64),
-        "B": np.zeros((p, eb_max)),
-        "dist": np.ones((p, eb_max)),
-        "ravg": np.ones((p, eb_max)),
-        "dzs": np.zeros((p, eb_max)),
-        "dzb": np.zeros((p, eb_max)),
-        "dep": np.zeros((p, eb_max)),
-        "valid": np.zeros((p, eb_max), bool),
-    }
-    if len(ci):
-        order_r = np.argsort(c_shard, kind="stable")
-        rq = c_shard[order_r]
-        rj = np.arange(len(ci)) - np.concatenate(
-            [[0], np.cumsum(rmt_counts)])[rq]
-        cio, cjo = ci[order_r], cj[order_r]
-        rmt["cell"][rq, rj] = old_to_slot[cio]
-        rmt["slot"][rq, rj] = cjo
-        rmt["gpos"][rq, rj] = nb_gpos_flat[cio, cjo]
-        rmt["B"][rq, rj] = md.edge[cio, cjo]
-        rmt["dist"][rq, rj] = np.where(
-            md.dist2nabor[cio, cjo] == 0.0, 1.0, md.dist2nabor[cio, cjo])
-        rmt["ravg"][rq, rj] = np.maximum(md.avg_rough[cio, cjo], 1e-20)
-        rmt["dzs"][rq, rj] = md.edge_dz_surf[cio, cjo]
-        rmt["dzb"][rq, rj] = md.edge_dz_bottom[cio, cjo]
-        rmt["dep"][rq, rj] = md.depression[cio]
-        rmt["valid"][rq, rj] = True
-    halo.update({f"rmt_{k}": v for k, v in rmt.items()})
-
-    # ---- compact lake-bank edge lists (Pallas-mode lake branch) ----------
-    lakenb_flat = np.asarray(md.lakenabr).ravel()
-    lcross = lakenb_flat >= 0
-    li = ii[lcross]
-    lj = (np.arange(ne * 3) % 3)[lcross]
-    l_shard = old_to_shard[li]
-    lk_counts = np.bincount(l_shard, minlength=p)
-    lb_max = max(1, int(lk_counts.max()) if len(li) else 1)
-    lke = {
-        "cell": np.zeros((p, lb_max), np.int64),
-        "slot": np.zeros((p, lb_max), np.int64),
-        "lake": np.zeros((p, lb_max), np.int64),
-        "nb_remote": np.zeros((p, lb_max), bool),
-        "nb_local": np.zeros((p, lb_max), np.int64),
-        "nb_gpos": np.zeros((p, lb_max), np.int64),
-        "B": np.zeros((p, lb_max)),
-        "dist": np.ones((p, lb_max)),
-        "dzl": np.zeros((p, lb_max)),
-        "dzb": np.zeros((p, lb_max)),
-        "contrib": np.zeros((p, lb_max), bool),  # bank cell (not lake cell)
-        "valid": np.zeros((p, lb_max), bool),
-    }
-    if len(li):
-        order_l = np.argsort(l_shard, kind="stable")
-        lq = l_shard[order_l]
-        lj2 = np.arange(len(li)) - np.concatenate(
-            [[0], np.cumsum(lk_counts)])[lq]
-        lio, ljo = li[order_l], lj[order_l]
-        lke["cell"][lq, lj2] = old_to_slot[lio]
-        lke["slot"][lq, lj2] = ljo
-        lke["lake"][lq, lj2] = md.lakenabr[lio, ljo]
-        lke["nb_remote"][lq, lj2] = nb_remote_flat[lio, ljo]
-        lke["nb_local"][lq, lj2] = nb_local_flat[lio, ljo]
-        lke["nb_gpos"][lq, lj2] = nb_gpos_flat[lio, ljo]
-        lke["B"][lq, lj2] = md.edge[lio, ljo]
-        lke["dist"][lq, lj2] = np.where(
-            md.dist2nabor[lio, ljo] == 0.0, 1.0, md.dist2nabor[lio, ljo])
-        lke["dzl"][lq, lj2] = md.edge_lake_dzl[lio, ljo]
-        lke["dzb"][lq, lj2] = md.edge_lake_dzb[lio, ljo]
-        lke["contrib"][lq, lj2] = np.asarray(md.i_lake)[lio] <= 0
-        lke["valid"][lq, lj2] = True
-    halo.update({f"lke_{k}": v for k, v in lke.items()})
-
     # ---- segments per shard (vectorised fill) ----
     seg_shard = old_to_shard[md.seg_ele]
     seg_sizes = np.bincount(seg_shard, minlength=p)
@@ -682,72 +524,6 @@ def build_sharded_mesh(md: MeshData, p: int,
             "num_ele": np.asarray(md.lake_num_ele),
         }
 
-    # ---- per-shard Pallas edge-kernel blocks ------------------------------
-    # kernel-visible adjacency: local slot of same-shard (and, when tiled,
-    # same-tile) neighbours; -1 for remote / boundary / inter-tile (those
-    # are handled by the halo / local-remainder lists)
-    same_tile = np.ones(ne * 3, dtype=bool)
-    if tile_cells:
-        same_tile[ok] = tile_of[nn[ok]] == tile_of[ii[ok]]
-    nabr_loc_flat = np.where(
-        (ok & ~cross & same_tile).reshape(ne, 3),
-        nb_local_flat, -1,
-    )
-    nabr_loc = np.full((p, np_cells, 3), -1, dtype=np.int64)
-    nabr_loc[old_to_shard, old_to_slot] = nabr_loc_flat
-
-    # ---- compact intra-shard inter-tile edge list (tiled numbering) ------
-    # Same flux laws as the cross-shard remainder, but the neighbour value
-    # is local to the shard block (no ghost): evaluated in XLA and
-    # merged by scatter-add exactly like rmt_*.  Only present when tiling
-    # actually cut edges — its presence is the static switch the sharded
-    # RHS keys on.
-    # (lake-bank edges stay on the lke_* list regardless of tiles)
-    tcut = ok & ~cross & ~same_tile & ~(np.asarray(md.lakenabr) >= 0).ravel()
-    if tcut.any():
-        ti = ii[tcut]
-        tj = (np.arange(ne * 3) % 3)[tcut]
-        tnb = nn[tcut]
-        t_shard = old_to_shard[ti]
-        t_counts = np.bincount(t_shard, minlength=p)
-        tb_max = max(1, int(t_counts.max()))
-        loc = {
-            "cell": np.zeros((p, tb_max), np.int64),
-            "slot": np.zeros((p, tb_max), np.int64),
-            "nbr": np.zeros((p, tb_max), np.int64),
-            "B": np.zeros((p, tb_max)),
-            "dist": np.ones((p, tb_max)),
-            "ravg": np.ones((p, tb_max)),
-            "dzs": np.zeros((p, tb_max)),
-            "dzb": np.zeros((p, tb_max)),
-            "dep": np.zeros((p, tb_max)),
-            "valid": np.zeros((p, tb_max), bool),
-        }
-        order_t = np.argsort(t_shard, kind="stable")
-        tq_ = t_shard[order_t]
-        tj2 = np.arange(len(ti)) - np.concatenate(
-            [[0], np.cumsum(t_counts)])[tq_]
-        tio, tjo, tno = ti[order_t], tj[order_t], tnb[order_t]
-        loc["cell"][tq_, tj2] = old_to_slot[tio]
-        loc["slot"][tq_, tj2] = tjo
-        loc["nbr"][tq_, tj2] = old_to_slot[tno]
-        loc["B"][tq_, tj2] = md.edge[tio, tjo]
-        loc["dist"][tq_, tj2] = np.where(
-            md.dist2nabor[tio, tjo] == 0.0, 1.0, md.dist2nabor[tio, tjo])
-        loc["ravg"][tq_, tj2] = np.maximum(md.avg_rough[tio, tjo], 1e-20)
-        loc["dzs"][tq_, tj2] = md.edge_dz_surf[tio, tjo]
-        loc["dzb"][tq_, tj2] = md.edge_dz_bottom[tio, tjo]
-        loc["dep"][tq_, tj2] = md.depression[tio]
-        loc["valid"][tq_, tj2] = True
-        halo.update({f"loc_{k}": v for k, v in loc.items()})
-    lake_e = np.zeros((p, np_cells, 3), dtype=bool)
-    lake_e[old_to_shard, old_to_slot] = np.asarray(md.lakenabr) >= 0
-    m_int_sh = (nabr_loc >= 0) & ~lake_e
-    m_bnd_sh = (~edge["has_nb"]) & ~lake_e & valid[:, :, None]
-    edge_blocks = _build_shard_edge_blocks(
-        p, np_cells, nabr_loc, m_int_sh, m_bnd_sh, edge, cell
-    )
-
     return ShardedMesh(
         p=p, np_cells=np_cells, ns_seg=ns_seg, nr_riv=nr_riv,
         num_ele=ne, num_riv=md.num_riv, num_lake=md.num_lake,
@@ -756,63 +532,7 @@ def build_sharded_mesh(md: MeshData, p: int,
         riv_owner=riv_owner[:nrv] if nrv else riv_owner[:0],
         riv_slot_of=riv_slot_of[:nrv] if nrv else riv_slot_of[:0],
         cell=cell, edge=edge, seg=seg, riv=riv, halo=halo, plan=plan,
-        lake=lake, edge_blocks=edge_blocks,
-    )
-
-
-def _build_shard_edge_blocks(p, np_cells, nabr_loc, m_int_sh, m_bnd_sh,
-                             edge, cell, min_blk: int = 512,
-                             max_blk: int = 8192):
-    """Stacked per-shard EdgeBlocks ([P, ...] leading axis) sharing one
-    block size, or None when some shard's local numbering is not banded
-    enough (build the partition with shard_order="rcm" to guarantee it)."""
-    from shud_tpu.core.pallas_edge import (
-        EdgeBlocks,
-        build_edge_blocks_arrays,
-        graph_bandwidth,
-    )
-
-    band = max(
-        graph_bandwidth(np.where(m_int_sh[q], nabr_loc[q], -1))
-        for q in range(p)
-    )
-    blk = max(int(min_blk), band, 1024)
-    blk = ((blk + 1023) // 1024) * 1024
-    if blk > max_blk:
-        return None
-    per_shard = []
-    for q in range(p):
-        eb = build_edge_blocks_arrays(
-            np_cells, nabr_loc[q],
-            m_int=m_int_sh[q], m_bnd=m_bnd_sh[q],
-            edge_len=edge["edge"][q], dist2nabor=edge["dist2nabor"][q],
-            avg_rough=edge["avg_rough"][q], dz_surf=edge["dz_surf"][q],
-            dz_bottom=edge["dz_bottom"][q], dist2edge=edge["dist2edge"][q],
-            depression=cell["depression"][q], rough=cell["rough"][q],
-            min_blk=min_blk, max_blk=max_blk, force_blk=blk,
-        )
-        if eb is None:
-            return None
-        per_shard.append(eb)
-    e0 = per_shard[0]
-    fields = ["nbq", "edge", "dist", "rough_avg", "dzs", "dzb", "m_int",
-              "m_bnd", "dist2edge", "dep", "rough_cell"]
-    # one shared shift range (the kernel shape is common to all shards);
-    # each shard's per-block used-shift mask re-offset into it
-    k_lo = min(eb.k_lo for eb in per_shard)
-    k_hi = max(eb.k_hi for eb in per_shard)
-    used = np.zeros((p, e0.nb, k_hi - k_lo + 1), np.int32)
-    for q, eb in enumerate(per_shard):
-        off = eb.k_lo - k_lo
-        used[q, :, off:off + eb.used.shape[1]] = eb.used
-    from shud_tpu.core.pallas_edge import _skip_worthwhile
-
-    return EdgeBlocks(
-        blk=e0.blk, nb=e0.nb, bc=e0.bc, num_ele=e0.num_ele,
-        k_lo=k_lo, k_hi=k_hi, used=used,
-        use_skip=_skip_worthwhile(used, k_lo, k_hi),
-        **{f: np.stack([getattr(eb, f) for eb in per_shard])
-           for f in fields},
+        lake=lake,
     )
 
 

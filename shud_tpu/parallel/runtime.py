@@ -24,30 +24,27 @@ from shud_tpu.parallel.sharded import AXIS, make_sharded_rhs, place_params
 from shud_tpu.solver.bdf import SolverConfig, bdf_init, solve_to
 
 
-def init_distributed(coordinator: str | None = None,
-                     num_processes: int | None = None,
-                     process_id: int | None = None):
-    """Multi-host initialisation (SURVEY §2.4: DP across hosts via
+def init_distributed(coordinator: str, num_processes: int, process_id: int,
+                     local_device_ids=None):
+    """Multi-process initialisation (SURVEY §2.4: DP across hosts via
     ``jax.distributed``).
 
-    Call once per host process before any jax use; afterwards
-    ``jax.devices()`` spans the whole pod slice and every sharded
-    construct in this package (RCB partition over the global device
-    count, `shard_map` RHS, psum reductions) works unchanged — GSPMD
-    routes the neighbour-wise halo `ppermute`s over ICI within a slice
-    and DCN across slices.  Arguments default to the standard TPU pod environment
-    (`jax.distributed.initialize()` autodetects on Cloud TPU); pass them
-    explicitly elsewhere (coordinator `"host0:8476"`, total process
-    count, this host's rank).
+    Call once per process before any jax use; afterwards ``jax.devices()``
+    spans every process's devices and every sharded construct in this
+    package (RCB partition over the global device count, `shard_map` RHS,
+    psum reductions) works unchanged — XLA routes the neighbour-wise halo
+    `ppermute`s between processes.  The coordinator (`"host0:8476"`), the
+    total process count and this process's rank are explicit arguments: no
+    cluster is autodetected.  ``local_device_ids`` lists the
+    cards this process drives; give each process on a host its own, so
+    that no two processes open the same card (default: all of the host's
+    cards, i.e. one process per host).
 
     Returns (process_index, global_device_count)."""
-    import jax
-
-    kw = {}
-    if coordinator is not None:
-        kw = dict(coordinator_address=coordinator,
-                  num_processes=num_processes, process_id=process_id)
-    jax.distributed.initialize(**kw)
+    jax.distributed.initialize(coordinator_address=coordinator,
+                               num_processes=num_processes,
+                               process_id=process_id,
+                               local_device_ids=local_device_ids)
     return jax.process_index(), len(jax.devices())
 
 
@@ -168,15 +165,13 @@ _RHS_CACHE: dict[tuple, tuple] = {}
 
 
 def _cached_sharded_rhs(sm: ShardedMesh, float_dtype=None,
-                        use_pallas: bool = False,
                         close_boundary: bool = True):
-    key = (id(sm), str(float_dtype), use_pallas, close_boundary)
+    key = (id(sm), str(float_dtype), close_boundary)
     if key not in _RHS_CACHE:
         _RHS_CACHE.clear()  # keep at most one mesh alive (avoid id reuse bugs)
         _RHS_CACHE[key] = (
             sm,
-            make_sharded_rhs(sm, float_dtype=float_dtype,
-                             use_pallas=use_pallas, with_diag=True,
+            make_sharded_rhs(sm, float_dtype=float_dtype, with_diag=True,
                              close_boundary=close_boundary),
         )
     return _RHS_CACHE[key][1]
@@ -358,9 +353,7 @@ class ShardedSimulation:
 
     def __init__(self, inp: ProjectInput, md: MeshData, p: int,
                  cfg: SolverConfig | None = None, float_dtype=None,
-                 use_pallas: bool = False, shard_order: str | None = None,
-                 wb_exact: "bool | None" = None,
-                 sm: "ShardedMesh | None" = None):
+                 wb_exact: "bool | None" = None):
         import os as _os
 
         import jax.numpy as jnp
@@ -370,20 +363,15 @@ class ShardedSimulation:
 
         self.inp = inp
         self.md = md
-        if shard_order is None:
-            shard_order = "rcm" if use_pallas else "keep"
         self.fd = float_dtype or jnp.float64
-        # ``sm``: inject a prebuilt (possibly disk-cached) partition — the
-        # 10M-cell benches rebuild it once and reuse across tools
-        self.sm = sm if sm is not None else build_sharded_mesh(
-            md, p, shard_order=shard_order)
+        self.sm = build_sharded_mesh(md, p)
         self.fr = build_forcing(inp, md)
         self.dm = to_device(md)
         cs = inp.control
         self.cfg = cfg or SolverConfig(rtol=cs.reltol, atol=cs.abstol,
                                        h_init=cs.init_step, h_max=cs.max_step)
         self.mesh, self.rhs_fn, self.diag_fn, params = _cached_sharded_rhs(
-            self.sm, float_dtype=float_dtype, use_pallas=use_pallas,
+            self.sm, float_dtype=float_dtype,
             close_boundary=bool(cs.close_boundary))
         self.cell_sh = NamedSharding(self.mesh, P(AXIS))
         self.rep_sh = NamedSharding(self.mesh, P())
@@ -582,7 +570,7 @@ class ShardedSimulation:
 def run_project_sharded(project: str, base: str = ".", p: int | None = None,
                         end_day: float | None = None, verbose: bool = True,
                         outpath: str | None = None, float_dtype=None,
-                        use_pallas: bool = False, resume: str | None = None,
+                        resume: str | None = None,
                         inp=None, calib=None, **overrides):
     """Multi-chip production driver: ``./shud <prj>`` over a P-device mesh
     with the FULL output stack of the single-chip driver (run_fast.py) —
@@ -591,8 +579,7 @@ def run_project_sharded(project: str, base: str = ".", p: int | None = None,
     time log — and ONE batched ``jax.device_get`` per output interval
     (channel means, flood stages, state, counters all ride one fetch).
 
-    ``float_dtype=jnp.float32`` + ``use_pallas=True`` runs the per-shard
-    fused edge kernel.  Reference: the C++ driver applies the identical
+    Reference: the C++ driver applies the identical
     output subsystem under its OpenMP mode (Model_Control.cpp:930-962,
     FloodAlert.cpp:115-131).
 
@@ -640,8 +627,7 @@ def run_project_sharded(project: str, base: str = ".", p: int | None = None,
             p -= 1  # largest power of two <= device count
     is_main = jax.process_index() == 0
     verbose = verbose and is_main
-    sim = ShardedSimulation(inp, md, p, float_dtype=float_dtype,
-                            use_pallas=use_pallas)
+    sim = ShardedSimulation(inp, md, p, float_dtype=float_dtype)
     if resume:
         load_checkpoint(resume, sim)
         if verbose:

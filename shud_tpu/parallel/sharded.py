@@ -18,8 +18,8 @@ exactly one neighbour shard — payload O(edge-cut), not the O(P·B) of an
 
 Lakes stay replicated (Nlake is tiny); per-lake reductions complete with
 ``psum``.  The only other global communication is the solver's dot
-products — the same communication structure CVODE+MPI would have, but over
-ICI collectives.
+products — the same communication structure CVODE+MPI would have, as
+XLA collectives.
 
 Physics is shared with the single-chip path (``shud_tpu.core.rhs``
 elementwise kernels); parity is enforced by the sharded-vs-unsharded
@@ -116,229 +116,10 @@ def _halo_reverse(plan: ExchangePlan, halo, partials, nr_local):
     return acc
 
 
-def _edge_stencil_pallas_row(pk, halo, lake_tbl, ghost_c, sf, gw, effkh,
-                             lake_stg, nl, close_boundary):
-    """Row-sum form of the per-shard edge stencil (the solver hot path).
-
-    The dY assembly consumes only the per-cell SUM of the 3 edge fluxes;
-    materialising logical [Np, 3] arrays (minor dim 3) forces XLA to
-    relayout every 12.6 MB kernel output — measured at ~7.7 ms of the
-    9.26 ms composed RHS at 1.05M cells (tools/profile_sharded.py,
-    docs/PERF.md).  This path reduces the kernel outputs to [Np] rows IN
-    the blocked layout and merges the O(edge-cut) remainder and lake-bank
-    branches with compact scatter-adds (the kernel emits 0 on remote and
-    lake-bank edges, so add == the dense path's mask-replace).
-
-    Returns (q_surf_row [Np], q_sub_row [Np] pre-fu_sub, per-lake surf/sub
-    partial sums [Nl] — pre-psum)."""
-    from shud_tpu.core.pallas_edge import (
-        _flux_sub_int,
-        _flux_surface_int,
-        edge_fluxes_pallas_rowsum,
-    )
-
-    eb, interpret = pk
-    np_cells = sf.shape[0]
-    qs_row, qb_row = edge_fluxes_pallas_rowsum(
-        eb, sf, gw, effkh, close_boundary=close_boundary,
-        interpret=interpret,
-    )
-    f32 = jnp.float32
-    sf32, gw32, kh32 = (jnp.asarray(sf, f32), jnp.asarray(gw, f32),
-                        jnp.asarray(effkh, f32))
-    rc, rv = halo["rmt_cell"], halo["rmt_valid"]
-    gq = halo["rmt_gpos"]
-    isf_r = jnp.maximum(sf32[rc], 0.0)
-    nsf_r = jnp.maximum(ghost_c[gq, 0], 0.0)
-    q_s_r, _ = _flux_surface_int(
-        isf_r, nsf_r, halo["rmt_dzs"], halo["rmt_dist"], halo["rmt_B"],
-        halo["rmt_ravg"], halo["rmt_dep"],
-    )
-    q_b_r, _ = _flux_sub_int(
-        gw32[rc], ghost_c[gq, 1], kh32[rc], ghost_c[gq, 2],
-        halo["rmt_dzb"], halo["rmt_dist"], halo["rmt_B"],
-    )
-    qs_row = qs_row.at[rc].add(jnp.where(rv, q_s_r, 0.0))
-    qb_row = qb_row.at[rc].add(jnp.where(rv, q_b_r, 0.0))
-    if "loc_cell" in halo:
-        # intra-shard inter-TILE edges (tiled per-shard numbering): same
-        # compact-list treatment as the cross-shard remainder, but the
-        # neighbour value is local to this shard block — no ghost needed
-        tc, tn, tv = halo["loc_cell"], halo["loc_nbr"], halo["loc_valid"]
-        q_s_t, _ = _flux_surface_int(
-            jnp.maximum(sf32[tc], 0.0), jnp.maximum(sf32[tn], 0.0),
-            halo["loc_dzs"], halo["loc_dist"], halo["loc_B"],
-            halo["loc_ravg"], halo["loc_dep"],
-        )
-        q_b_t, _ = _flux_sub_int(
-            gw32[tc], gw32[tn], kh32[tc], kh32[tn],
-            halo["loc_dzb"], halo["loc_dist"], halo["loc_B"],
-        )
-        qs_row = qs_row.at[tc].add(jnp.where(tv, q_s_t, 0.0))
-        qb_row = qb_row.at[tc].add(jnp.where(tv, q_b_t, 0.0))
-    if nl == 0:
-        z = jnp.zeros((0,), qs_row.dtype)
-        return qs_row, qb_row, z, z
-
-    lc, lv = halo["lke_cell"], halo["lke_valid"]
-    lid = halo["lke_lake"]
-    lstg_raw = jnp.asarray(lake_stg, f32)[lid]
-    lstg = jnp.maximum(lstg_raw, 0.0)
-    isf_l = jnp.maximum(sf32[lc], 0.0)
-    q_s_l = ph.weir_flow_jtoi_local(
-        lstg + halo["lke_dzl"], isf_l, lstg, 0.6, halo["lke_B"], 0.01,
-    )
-    khnb = jnp.where(
-        halo["lke_nb_remote"], ghost_c[halo["lke_nb_gpos"], 2],
-        kh32[halo["lke_nb_local"]],
-    )
-    gw_l = gw32[lc]
-    dh_lk = (gw_l - lstg_raw) + halo["lke_dzb"]
-    ymean_lk = ph.avg_y_gw(gw_l, lstg_raw)
-    kmean_lk = 0.5 * (kh32[lc] + khnb)
-    q_b_l = kmean_lk * (dh_lk / halo["lke_dist"]) * ymean_lk * halo["lke_B"]
-    q_b_l = jnp.where(
-        ((dh_lk > 0.0) & (gw_l <= 0.02))
-        | ((dh_lk < 0.0) & (lstg_raw <= 0.02)),
-        0.0, q_b_l,
-    )
-    q_s_l = jnp.where(lv, q_s_l, 0.0)
-    q_b_l = jnp.where(lv, q_b_l, 0.0)
-    qs_row = qs_row.at[lc].add(q_s_l)
-    qb_row = qb_row.at[lc].add(q_b_l)
-    contrib = lv & halo["lke_contrib"]
-    lk_surf_loc = segment_sum(jnp.where(contrib, q_s_l, 0.0), lid,
-                              num_segments=nl)
-    lk_sub_loc = segment_sum(jnp.where(contrib, q_b_l, 0.0), lid,
-                             num_segments=nl)
-    return qs_row, qb_row, lk_surf_loc, lk_sub_loc
-
-
-def _edge_stencil_pallas(pk, halo, lake_tbl, ghost_c, sf, gw, effkh,
-                         lake_stg, nl, close_boundary):
-    """Per-shard lateral edge stencil, kernel-composed (f32):
-
-    * local-interior + open-boundary edges: the fused banded-window Pallas
-      kernel on this shard's block (core/pallas_edge.py — the per-shard
-      counterpart of the reference loop MD_ElementFlux.cpp:35-156);
-    * cross-shard edges: the same flux law on the compact halo list
-      (O(edge-cut)), neighbour values from the ppermute ghost buffer;
-    * lake banks: weir/Darcy on the compact lake list, mask-merged with the
-      reference's branch priority (lake > neighbour > boundary).
-
-    Returns (q_esurf [Np,3], q_esub0 [Np,3], per-lake surf/sub partial
-    sums [Nl] — pre-psum)."""
-    from shud_tpu.core.pallas_edge import (
-        _flux_sub_int,
-        _flux_surface_int,
-        edge_fluxes_pallas,
-    )
-
-    eb, interpret = pk
-    np_cells = sf.shape[0]
-    q_surf_k, q_sub_k = edge_fluxes_pallas(
-        eb, sf, gw, effkh, close_boundary=close_boundary,
-        interpret=interpret,
-    )
-    f32 = jnp.float32
-    sf32, gw32, kh32 = (jnp.asarray(sf, f32), jnp.asarray(gw, f32),
-                        jnp.asarray(effkh, f32))
-    rc, rs, rv = halo["rmt_cell"], halo["rmt_slot"], halo["rmt_valid"]
-    gq = halo["rmt_gpos"]
-    isf_r = jnp.maximum(sf32[rc], 0.0)
-    nsf_r = jnp.maximum(ghost_c[gq, 0], 0.0)
-    q_s_r, _ = _flux_surface_int(
-        isf_r, nsf_r, halo["rmt_dzs"], halo["rmt_dist"], halo["rmt_B"],
-        halo["rmt_ravg"], halo["rmt_dep"],
-    )
-    q_b_r, _ = _flux_sub_int(
-        gw32[rc], ghost_c[gq, 1], kh32[rc], ghost_c[gq, 2],
-        halo["rmt_dzb"], halo["rmt_dist"], halo["rmt_B"],
-    )
-    rflat = rc * 3 + rs
-    q_esurf = q_surf_k.reshape(-1).at[rflat].add(
-        jnp.where(rv, q_s_r, 0.0)).reshape(np_cells, 3)
-    q_esub0 = q_sub_k.reshape(-1).at[rflat].add(
-        jnp.where(rv, q_b_r, 0.0)).reshape(np_cells, 3)
-    if "loc_cell" in halo:
-        # intra-shard inter-tile edges (tiled numbering): local neighbour
-        tc, ts, tn = halo["loc_cell"], halo["loc_slot"], halo["loc_nbr"]
-        tv = halo["loc_valid"]
-        q_s_t, _ = _flux_surface_int(
-            jnp.maximum(sf32[tc], 0.0), jnp.maximum(sf32[tn], 0.0),
-            halo["loc_dzs"], halo["loc_dist"], halo["loc_B"],
-            halo["loc_ravg"], halo["loc_dep"],
-        )
-        q_b_t, _ = _flux_sub_int(
-            gw32[tc], gw32[tn], kh32[tc], kh32[tn],
-            halo["loc_dzb"], halo["loc_dist"], halo["loc_B"],
-        )
-        tflat = tc * 3 + ts
-        q_esurf = q_esurf.reshape(-1).at[tflat].add(
-            jnp.where(tv, q_s_t, 0.0)).reshape(np_cells, 3)
-        q_esub0 = q_esub0.reshape(-1).at[tflat].add(
-            jnp.where(tv, q_b_t, 0.0)).reshape(np_cells, 3)
-    if nl == 0:
-        z = jnp.zeros((0,), q_esurf.dtype)
-        return q_esurf, q_esub0, z, z
-
-    lc, ls, lv = halo["lke_cell"], halo["lke_slot"], halo["lke_valid"]
-    lid = halo["lke_lake"]
-    lstg_raw = jnp.asarray(lake_stg, f32)[lid]
-    lstg = jnp.maximum(lstg_raw, 0.0)
-    isf_l = jnp.maximum(sf32[lc], 0.0)
-    q_s_l = ph.weir_flow_jtoi_local(
-        lstg + halo["lke_dzl"], isf_l, lstg, 0.6, halo["lke_B"], 0.01,
-    )
-    khnb = jnp.where(
-        halo["lke_nb_remote"], ghost_c[halo["lke_nb_gpos"], 2],
-        kh32[halo["lke_nb_local"]],
-    )
-    gw_l = gw32[lc]
-    dh_lk = (gw_l - lstg_raw) + halo["lke_dzb"]
-    ymean_lk = ph.avg_y_gw(gw_l, lstg_raw)
-    kmean_lk = 0.5 * (kh32[lc] + khnb)
-    q_b_l = kmean_lk * (dh_lk / halo["lke_dist"]) * ymean_lk * halo["lke_B"]
-    q_b_l = jnp.where(
-        ((dh_lk > 0.0) & (gw_l <= 0.02))
-        | ((dh_lk < 0.0) & (lstg_raw <= 0.02)),
-        0.0, q_b_l,
-    )
-    q_s_l = jnp.where(lv, q_s_l, 0.0)
-    q_b_l = jnp.where(lv, q_b_l, 0.0)
-    lflat = lc * 3 + ls
-    lake_surf_d = jnp.zeros(np_cells * 3, f32).at[lflat].add(q_s_l)
-    lake_sub_d = jnp.zeros(np_cells * 3, f32).at[lflat].add(q_b_l)
-    has_lk = lake_tbl["lakenabr"] >= 0
-    q_esurf = jnp.where(has_lk, lake_surf_d.reshape(np_cells, 3), q_esurf)
-    q_esub0 = jnp.where(has_lk, lake_sub_d.reshape(np_cells, 3), q_esub0)
-    contrib = lv & halo["lke_contrib"]
-    lk_surf_loc = segment_sum(jnp.where(contrib, q_s_l, 0.0), lid,
-                              num_segments=nl)
-    lk_sub_loc = segment_sum(jnp.where(contrib, q_b_l, 0.0), lid,
-                             num_segments=nl)
-    return q_esurf, q_esub0, lk_surf_loc, lk_sub_loc
-
-
 def _local_rhs(plan, cell, edge, seg, riv, lake_tbl, halo, t,
                y_local, fs_local, fs_riv, close_boundary: bool,
-               pk=None, parts=("ele", "edge", "seg", "riv"),
                want_diag: bool = False):
-    """RHS for one shard's cell + river blocks (runs inside shard_map).
-
-    ``pk``: optional ``(EdgeBlocks, interpret)`` Pallas kit — when given,
-    the lateral edge stencil runs the fused banded-window kernel
-    (core/pallas_edge.py) on this shard's local block, and only the
-    O(edge-cut) remainder (cross-shard + lake-bank edges) is evaluated in
-    XLA on the compact halo lists (``halo["rmt_*"]`` / ``halo["lke_*"]``)
-    and mask-merged — no dense neighbour gather remains (f32 only).
-
-    ``parts``: profiling ablation (tools/profile_sharded.py) — drop
-    "edge"/"seg"/"riv" to replace that stencil's fluxes with zeros and
-    time the remaining dataflow; production always runs the full set."""
-    do_edge = "edge" in parts
-    do_seg = "seg" in parts
-    do_riv = "riv" in parts
+    """RHS for one shard's cell + river blocks (runs inside shard_map)."""
     sf, us, gw_raw = y_local["sf"], y_local["us"], y_local["gw"]
     riv_y = y_local["riv"]
     lake_stg = y_local["lake"]
@@ -390,220 +171,177 @@ def _local_rhs(plan, cell, edge, seg, riv, lake_tbl, halo, t,
     ghost_c, ghost_r = _halo_forward(plan, halo, exports_c, riv_stage)
 
     np_cells = sf.shape[0]
-    q_surf_row = q_sub_row = None
-    if (pk is not None and do_edge and "edge_raw" not in parts
-            and not want_diag):
-        # hot path: per-cell row sums straight from the kernel's blocked
-        # layout + compact scatter remainder — no [Np, 3] materialisation
-        q_surf_row, q_sub_row0, lk_surf_loc, lk_sub_loc = (
-            _edge_stencil_pallas_row(
-                pk, halo, lake_tbl, ghost_c, sf, gw, cu.eff_kh, lake_stg,
-                nl, close_boundary,
-            ))
-        q_sub_row = q_sub_row0 * fs_local["fs"].fu_sub
-        if nl > 0:
-            q_surf_row = jnp.where(is_lake_cell, 0.0, q_surf_row)
-            q_sub_row = jnp.where(is_lake_cell, 0.0, q_sub_row)
-    elif "edge_raw" in parts and pk is not None:
-        # profiling ablation: the kernel alone, remainder/lake merge skipped
-        from shud_tpu.core.pallas_edge import edge_fluxes_pallas as _efp
+    nb_remote = halo["nb_remote"]  # [Np,3] bool
+    nb_local = halo["nb_local"]
+    nb_gpos = halo["nb_gpos"]
+    has_nb = edge["has_nb"]
 
-        ebk, interp_ = pk
-        q_esurf, q_esub0 = _efp(ebk, sf, gw, cu.eff_kh,
-                                close_boundary=close_boundary,
-                                interpret=interp_)
-        lk_surf_loc = lk_sub_loc = jnp.zeros((nl,), dtype=sf.dtype)
-    elif not do_edge:
-        q_esurf = jnp.zeros((np_cells, 3), dtype=sf.dtype)
-        q_esub0 = jnp.zeros((np_cells, 3), dtype=sf.dtype)
-        lk_surf_loc = lk_sub_loc = jnp.zeros((nl,), dtype=sf.dtype)
-    elif pk is not None:
-        # ---- fused Pallas edge kernel + compact XLA remainder ----
-        q_esurf, q_esub0, lk_surf_loc, lk_sub_loc = _edge_stencil_pallas(
-            pk, halo, lake_tbl, ghost_c, sf, gw, cu.eff_kh, lake_stg, nl,
-            close_boundary,
+    # ONE stacked gather for all three neighbour fields (same trick as
+    # the single-chip fast path — three separate dense gathers cost
+    # 3x the HBM sweeps; exports_c is already the stacked array)
+    nb_stack = jnp.where(
+        nb_remote[..., None], ghost_c[nb_gpos], exports_c[nb_local]
+    )  # [Np, 3, (sf, gw, effKH)]
+    nsf = jnp.maximum(nb_stack[..., 0], 0.0)
+    gw_nb = nb_stack[..., 1]
+    effkh_nb = nb_stack[..., 2]
+
+    isf = jnp.maximum(sf, 0.0)[:, None]
+    B = edge["edge"]
+    dist = edge["dist2nabor"]
+
+    dh = (isf - nsf) + edge["dz_surf"]
+    up1 = jnp.where(isf > m.depression[:, None], isf, 0.0)
+    up2 = jnp.where(nsf > m.depression[:, None], nsf, 0.0)
+    ymean = jnp.where(dh > 0.0, jnp.broadcast_to(up1, up2.shape), up2)
+    ymean = jnp.minimum(ymean, MAXYSURF)
+    s = dh / dist
+    q_int = ph.manning_equation(ymean * B, edge["avg_rough"], ymean, s)
+    q_int = jnp.where((s > 0) & (isf <= 0.0), 0.0, q_int)
+    q_int = jnp.where((s < 0) & (nsf <= 0.0), 0.0, q_int)
+    q_int = jnp.where(ymean <= 0.0, 0.0, q_int)
+
+    # lake-bank branches (weir + darcy against the replicated lake stage)
+    if nl > 0:
+        lakenb = lake_tbl["lakenabr"]  # [Np,3] 0-based, -1 none
+        has_lk = lakenb >= 0
+        lki = jnp.where(has_lk, lakenb, 0)
+        lake_nsf = jnp.maximum(lake_stg[lki], 0.0)
+        # local-datum form (same as the single-chip fast path): the
+        # km-scale elevation is cancelled in f64 at partition build
+        q_surf_lake = ph.weir_flow_jtoi_local(
+            lake_nsf + lake_tbl["dzl"], isf, lake_nsf, 0.6, B, 0.01,
         )
+    if close_boundary:
+        q_bnd = jnp.zeros_like(B)
     else:
-        nb_remote = halo["nb_remote"]  # [Np,3] bool
-        nb_local = halo["nb_local"]
-        nb_gpos = halo["nb_gpos"]
-        has_nb = edge["has_nb"]
+        sb = isf / edge["dist2edge"] * 0.5
+        isf5 = jnp.cbrt(jnp.maximum(isf, 1e-30) ** 5)
+        qb = jnp.sqrt(jnp.maximum(sb, 1e-30)) * isf5 * B / m.rough[:, None]
+        q_bnd = jnp.where((isf > m.depression[:, None]) & (sb > 0.0),
+                          qb, 0.0)
+    if nl > 0:
+        q_esurf = jnp.where(has_lk, q_surf_lake,
+                            jnp.where(has_nb, q_int, q_bnd))
+    else:
+        q_esurf = jnp.where(has_nb, q_int, q_bnd)
 
-        # ONE stacked gather for all three neighbour fields (same trick as
-        # the single-chip fast path — three separate dense gathers cost
-        # 3x the HBM sweeps; exports_c is already the stacked array)
-        nb_stack = jnp.where(
-            nb_remote[..., None], ghost_c[nb_gpos], exports_c[nb_local]
-        )  # [Np, 3, (sf, gw, effKH)]
-        nsf = jnp.maximum(nb_stack[..., 0], 0.0)
-        gw_nb = nb_stack[..., 1]
-        effkh_nb = nb_stack[..., 2]
-
-        isf = jnp.maximum(sf, 0.0)[:, None]
-        B = edge["edge"]
-        dist = edge["dist2nabor"]
-
-        dh = (isf - nsf) + edge["dz_surf"]
-        up1 = jnp.where(isf > m.depression[:, None], isf, 0.0)
-        up2 = jnp.where(nsf > m.depression[:, None], nsf, 0.0)
-        ymean = jnp.where(dh > 0.0, jnp.broadcast_to(up1, up2.shape), up2)
-        ymean = jnp.minimum(ymean, MAXYSURF)
-        s = dh / dist
-        q_int = ph.manning_equation(ymean * B, edge["avg_rough"], ymean, s)
-        q_int = jnp.where((s > 0) & (isf <= 0.0), 0.0, q_int)
-        q_int = jnp.where((s < 0) & (nsf <= 0.0), 0.0, q_int)
-        q_int = jnp.where(ymean <= 0.0, 0.0, q_int)
-
-        # lake-bank branches (weir + darcy against the replicated lake stage)
-        if nl > 0:
-            lakenb = lake_tbl["lakenabr"]  # [Np,3] 0-based, -1 none
-            has_lk = lakenb >= 0
-            lki = jnp.where(has_lk, lakenb, 0)
-            lake_nsf = jnp.maximum(lake_stg[lki], 0.0)
-            # local-datum form (same as the single-chip fast path): the
-            # km-scale elevation is cancelled in f64 at partition build
-            q_surf_lake = ph.weir_flow_jtoi_local(
-                lake_nsf + lake_tbl["dzl"], isf, lake_nsf, 0.6, B, 0.01,
-            )
-        if close_boundary:
-            q_bnd = jnp.zeros_like(B)
-        else:
-            sb = isf / edge["dist2edge"] * 0.5
-            isf5 = jnp.cbrt(jnp.maximum(isf, 1e-30) ** 5)
-            qb = jnp.sqrt(jnp.maximum(sb, 1e-30)) * isf5 * B / m.rough[:, None]
-            q_bnd = jnp.where((isf > m.depression[:, None]) & (sb > 0.0),
-                              qb, 0.0)
-        if nl > 0:
-            q_esurf = jnp.where(has_lk, q_surf_lake,
-                                jnp.where(has_nb, q_int, q_bnd))
-        else:
-            q_esurf = jnp.where(has_nb, q_int, q_bnd)
-
-        gw_col = gw[:, None]
-        dh_s = (gw_col - gw_nb) + edge["dz_bottom"]
-        ymean_s = ph.avg_y_gw(gw_col, gw_nb)
-        grad_s = dh_s / dist
-        kmean = 0.5 * (cu.eff_kh[:, None] + effkh_nb)
-        q_sub_int = kmean * grad_s * ymean_s * B
-        q_sub_int = jnp.where(
-            ((dh_s > 0.0) & (gw_col <= 0.02))
-            | ((dh_s < 0.0) & (gw_nb <= 0.02)),
-            0.0, q_sub_int,
+    gw_col = gw[:, None]
+    dh_s = (gw_col - gw_nb) + edge["dz_bottom"]
+    ymean_s = ph.avg_y_gw(gw_col, gw_nb)
+    grad_s = dh_s / dist
+    kmean = 0.5 * (cu.eff_kh[:, None] + effkh_nb)
+    q_sub_int = kmean * grad_s * ymean_s * B
+    q_sub_int = jnp.where(
+        ((dh_s > 0.0) & (gw_col <= 0.02))
+        | ((dh_s < 0.0) & (gw_nb <= 0.02)),
+        0.0, q_sub_int,
+    )
+    if close_boundary:
+        q_sub_bnd = jnp.zeros_like(B)
+    else:
+        grad_b = gw_col / edge["dist2edge"] * 0.5
+        q_sub_bnd = jnp.where(
+            (gw_col > m.depression[:, None] * 10.0) & (grad_b > 0.0),
+            cu.eff_kh[:, None] * grad_b, 0.0,
         )
-        if close_boundary:
-            q_sub_bnd = jnp.zeros_like(B)
-        else:
-            grad_b = gw_col / edge["dist2edge"] * 0.5
-            q_sub_bnd = jnp.where(
-                (gw_col > m.depression[:, None] * 10.0) & (grad_b > 0.0),
-                cu.eff_kh[:, None] * grad_b, 0.0,
-            )
-        if nl > 0:
-            dh_lk = (gw_col - lake_stg[lki]) + lake_tbl["dzb"]
-            ymean_lk = ph.avg_y_gw(gw_col, lake_stg[lki])
-            kmean_lk = 0.5 * (cu.eff_kh[:, None] + effkh_nb)
-            q_sub_lake = kmean_lk * (dh_lk / dist) * ymean_lk * B
-            q_sub_lake = jnp.where(
-                ((dh_lk > 0.0) & (gw_col <= 0.02))
-                | ((dh_lk < 0.0) & (lake_stg[lki] <= 0.02)),
-                0.0, q_sub_lake,
-            )
-            q_esub0 = jnp.where(has_lk, q_sub_lake,
-                                jnp.where(has_nb, q_sub_int, q_sub_bnd))
-        else:
-            q_esub0 = jnp.where(has_nb, q_sub_int, q_sub_bnd)
-        if nl > 0:
-            lk_mask = has_lk & ~is_lake_cell[:, None]
-            lk_surf_loc = segment_sum(
-                jnp.where(lk_mask, q_esurf, 0.0).ravel(), lki.ravel(),
-                num_segments=nl,
-            )
-            lk_sub_loc = segment_sum(
-                jnp.where(lk_mask, q_esub0, 0.0).ravel(), lki.ravel(),
-                num_segments=nl,
-            )
-    if q_surf_row is None:
-        q_esub = q_esub0 * fs_local["fs"].fu_sub[:, None]
-        if nl > 0:
-            q_esurf = jnp.where(is_lake_cell[:, None], 0.0, q_esurf)
-            q_esub = jnp.where(is_lake_cell[:, None], 0.0, q_esub)
-        q_surf_row = q_esurf.sum(axis=1)
-        q_sub_row = q_esub.sum(axis=1)
+    if nl > 0:
+        dh_lk = (gw_col - lake_stg[lki]) + lake_tbl["dzb"]
+        ymean_lk = ph.avg_y_gw(gw_col, lake_stg[lki])
+        kmean_lk = 0.5 * (cu.eff_kh[:, None] + effkh_nb)
+        q_sub_lake = kmean_lk * (dh_lk / dist) * ymean_lk * B
+        q_sub_lake = jnp.where(
+            ((dh_lk > 0.0) & (gw_col <= 0.02))
+            | ((dh_lk < 0.0) & (lake_stg[lki] <= 0.02)),
+            0.0, q_sub_lake,
+        )
+        q_esub0 = jnp.where(has_lk, q_sub_lake,
+                            jnp.where(has_nb, q_sub_int, q_sub_bnd))
+    else:
+        q_esub0 = jnp.where(has_nb, q_sub_int, q_sub_bnd)
+    if nl > 0:
+        lk_mask = has_lk & ~is_lake_cell[:, None]
+        lk_surf_loc = segment_sum(
+            jnp.where(lk_mask, q_esurf, 0.0).ravel(), lki.ravel(),
+            num_segments=nl,
+        )
+        lk_sub_loc = segment_sum(
+            jnp.where(lk_mask, q_esub0, 0.0).ravel(), lki.ravel(),
+            num_segments=nl,
+        )
+    q_esub = q_esub0 * fs_local["fs"].fu_sub[:, None]
+    if nl > 0:
+        q_esurf = jnp.where(is_lake_cell[:, None], 0.0, q_esurf)
+        q_esub = jnp.where(is_lake_cell[:, None], 0.0, q_esub)
+    q_surf_row = q_esurf.sum(axis=1)
+    q_sub_row = q_esub.sum(axis=1)
 
     # ---- segments (local elements; river stage local or from the halo) ----
     nr_local = riv_stage.shape[0]
     se = seg["ele_slot"]
     sr_local = seg["riv_local"]
-    if do_seg:
-        sval = seg["valid"]
-        seg_stage = jnp.where(
-            sr_local, riv_stage[seg["riv_slot"]], ghost_r[seg["riv_gpos"]]
-        )
-        seg_isf = jnp.maximum(0.0, sf[se] - q_infil[se] + q_exfil[se])
-        # local-datum form (identical to rhs_full's low_prec branch):
-        # subtract z_surf (weir) / z_bottom (bed Darcy) — algebraically
-        # identical in f64, f32-safe against km-scale elevations
-        zero_e = jnp.zeros_like(seg_isf)
-        q_seg_surf = ph.weir_flow_jtoi(
-            zero_e, seg_isf, -seg["rdepth"], seg_stage,
-            zero_e, seg["cwr"], seg["length"], m.depression[se],
-        )
-        q_seg_sub = ph.flux_r2e_gw(
-            seg_stage, m.aq_depth[se] - seg["rdepth"], gw[se], zero_e,
-            cu.eff_kh[se], seg["rksat"], seg["length"], seg["rbed"],
-        ) * fs_local["fs"].fu_sub[se]
-        q_seg_surf = jnp.where(sval, q_seg_surf, 0.0)
-        q_seg_sub = jnp.where(sval, q_seg_sub, 0.0)
+    sval = seg["valid"]
+    seg_stage = jnp.where(
+        sr_local, riv_stage[seg["riv_slot"]], ghost_r[seg["riv_gpos"]]
+    )
+    seg_isf = jnp.maximum(0.0, sf[se] - q_infil[se] + q_exfil[se])
+    # local-datum form (identical to rhs_full's low_prec branch):
+    # subtract z_surf (weir) / z_bottom (bed Darcy) — algebraically
+    # identical in f64, f32-safe against km-scale elevations
+    zero_e = jnp.zeros_like(seg_isf)
+    q_seg_surf = ph.weir_flow_jtoi(
+        zero_e, seg_isf, -seg["rdepth"], seg_stage,
+        zero_e, seg["cwr"], seg["length"], m.depression[se],
+    )
+    q_seg_sub = ph.flux_r2e_gw(
+        seg_stage, m.aq_depth[se] - seg["rdepth"], gw[se], zero_e,
+        cu.eff_kh[se], seg["rksat"], seg["length"], seg["rbed"],
+    ) * fs_local["fs"].fu_sub[se]
+    q_seg_surf = jnp.where(sval, q_seg_surf, 0.0)
+    q_seg_sub = jnp.where(sval, q_seg_sub, 0.0)
 
-        q_riv_surf = segment_sum(
-            jnp.where(sr_local, q_seg_surf, 0.0), seg["riv_slot"],
-            num_segments=nr_local,
-        )
-        q_riv_sub = segment_sum(
-            jnp.where(sr_local, q_seg_sub, 0.0), seg["riv_slot"],
-            num_segments=nr_local,
-        )
-        q_e2r_surf = segment_sum(-q_seg_surf, se, num_segments=np_cells)
-        q_e2r_sub = segment_sum(-q_seg_sub, se, num_segments=np_cells)
-    else:
-        q_seg_surf = q_seg_sub = jnp.zeros_like(seg["length"])
-        q_riv_surf = q_riv_sub = jnp.zeros_like(riv_stage)
-        q_e2r_surf = q_e2r_sub = jnp.zeros(np_cells, dtype=sf.dtype)
+    q_riv_surf = segment_sum(
+        jnp.where(sr_local, q_seg_surf, 0.0), seg["riv_slot"],
+        num_segments=nr_local,
+    )
+    q_riv_sub = segment_sum(
+        jnp.where(sr_local, q_seg_sub, 0.0), seg["riv_slot"],
+        num_segments=nr_local,
+    )
+    q_e2r_surf = segment_sum(-q_seg_surf, se, num_segments=np_cells)
+    q_e2r_sub = segment_sum(-q_seg_sub, se, num_segments=np_cells)
 
     # ---- river chain (owner-computed; downstream stage local or halo) ----
     has_down = riv["has_down"]
     to_lake = riv["riv_to_lake"] >= 0
-    if do_riv:
-        stage_dn = jnp.where(
-            riv["down_local"], riv_stage[riv["down_slot"]],
-            ghost_r[riv["down_gpos"]],
-        )
-        s_mean = 0.5 * (riv["riv_bed_slope"] + riv["down_bedslope"])
-        s_down = (
-            (riv_stage - riv["riv_depth"]) - (stage_dn - riv["down_depth"])
-        ) / riv["riv_dist2down"] + s_mean
-        r_hyd = jnp.where(r_per <= ZERO, 0.0,
-                          r_csa / jnp.where(r_per <= ZERO, 1.0, r_per))
-        q_down_int = ph.manning_equation(r_csa, riv["riv_avg_rough"],
-                                         r_hyd, s_down)
-        s_out = riv["riv_bed_slope"] + riv_stage * 2.0 / riv["riv_length"]
-        q_out_zdg = ph.manning_equation(r_csa, riv["riv_avg_rough"],
-                                        r_hyd, s_out)
-        q_out_crit = (r_csa * jnp.sqrt(GRAV * jnp.maximum(riv_stage, 1e-30))
-                      * 60.0)
-        q_riv_down = jnp.where(
-            to_lake, q_out_zdg,
-            jnp.where(has_down, q_down_int,
-                      jnp.where(riv["riv_outlet_code"] == -4, q_out_crit,
-                                q_out_zdg)),
-        )
-        q_riv_down = jnp.where(rvalid, q_riv_down, 0.0)
-        q_riv_up = segment_sum(
-            jnp.where(has_down & riv["down_local"], -q_riv_down, 0.0),
-            riv["down_slot"], num_segments=nr_local,
-        )
-    else:
-        q_riv_down = q_riv_up = jnp.zeros_like(riv_stage)
+    stage_dn = jnp.where(
+        riv["down_local"], riv_stage[riv["down_slot"]],
+        ghost_r[riv["down_gpos"]],
+    )
+    s_mean = 0.5 * (riv["riv_bed_slope"] + riv["down_bedslope"])
+    s_down = (
+        (riv_stage - riv["riv_depth"]) - (stage_dn - riv["down_depth"])
+    ) / riv["riv_dist2down"] + s_mean
+    r_hyd = jnp.where(r_per <= ZERO, 0.0,
+                      r_csa / jnp.where(r_per <= ZERO, 1.0, r_per))
+    q_down_int = ph.manning_equation(r_csa, riv["riv_avg_rough"],
+                                     r_hyd, s_down)
+    s_out = riv["riv_bed_slope"] + riv_stage * 2.0 / riv["riv_length"]
+    q_out_zdg = ph.manning_equation(r_csa, riv["riv_avg_rough"],
+                                    r_hyd, s_out)
+    q_out_crit = (r_csa * jnp.sqrt(GRAV * jnp.maximum(riv_stage, 1e-30))
+                  * 60.0)
+    q_riv_down = jnp.where(
+        to_lake, q_out_zdg,
+        jnp.where(has_down, q_down_int,
+                  jnp.where(riv["riv_outlet_code"] == -4, q_out_crit,
+                            q_out_zdg)),
+    )
+    q_riv_down = jnp.where(rvalid, q_riv_down, 0.0)
+    q_riv_up = segment_sum(
+        jnp.where(has_down & riv["down_local"], -q_riv_down, 0.0),
+        riv["down_slot"], num_segments=nr_local,
+    )
 
     # ---- reverse halo: flux partials for remote reaches -> owners ----
     gr = plan.g_riv
@@ -721,10 +459,7 @@ _SHARDED_LAKE_KEYS = ("lakenabr", "dzl", "dzb")
 
 
 def make_sharded_rhs(sm: ShardedMesh, devices=None, close_boundary=True,
-                     float_dtype=None, use_pallas: bool = False,
-                     interpret: "bool | None" = None,
-                     parts=("ele", "edge", "seg", "riv"),
-                     with_diag: bool = False):
+                     float_dtype=None, with_diag: bool = False):
     """Build (mesh, rhs_fn, device_arrays).
 
     ``rhs_fn(t, y, params)`` takes the sharded state pytree
@@ -732,12 +467,8 @@ def make_sharded_rhs(sm: ShardedMesh, devices=None, close_boundary=True,
     layout; cell and river blocks are sharded over the device mesh axis,
     lakes replicated.
 
-    ``float_dtype``: f64 (default, oracle-parity) or f32 (TPU fast path;
-    local-datum dz arrays keep mm-scale gradients).  ``use_pallas`` runs
-    the fused banded-window edge kernel per shard (requires f32 and a
-    partition built with banded per-shard numbering — ``sm.edge_blocks``
-    non-None); cross-shard and lake-bank edges are evaluated on the
-    compact halo lists and mask-merged."""
+    ``float_dtype``: f64 (default, oracle-parity) or f32 (local-datum dz
+    arrays keep mm-scale gradients)."""
     if devices is None:
         avail = jax.devices()
         if len(avail) < sm.p:
@@ -761,15 +492,6 @@ def make_sharded_rhs(sm: ShardedMesh, devices=None, close_boundary=True,
     plan = sm.plan
 
     fd = float_dtype or jnp.float64
-    if use_pallas:
-        if fd != jnp.float32:
-            raise ValueError("use_pallas requires float_dtype=jnp.float32 "
-                             "(Mosaic has no f64)")
-        if sm.edge_blocks is None:
-            raise ValueError(
-                "partition has no per-shard edge blocks (local numbering "
-                "not banded) — build_sharded_mesh(md, p, shard_order='rcm')"
-            )
     cell = {
         k: jnp.asarray(v, dtype=fd if v.dtype.kind == "f" else jnp.int32)
         for k, v in sm.cell.items()
@@ -788,24 +510,6 @@ def make_sharded_rhs(sm: ShardedMesh, devices=None, close_boundary=True,
     seg = {k: conv(v) for k, v in sm.seg.items()}
     riv = {k: conv(v) for k, v in sm.riv.items()}
     halo = {k: conv(v) for k, v in sm.halo.items()}
-    _EB_FIELDS = ("nbq", "edge", "dist", "rough_avg", "dzs", "dzb",
-                  "m_int", "m_bnd", "dist2edge", "dep", "rough_cell",
-                  "used")
-    if use_pallas:
-        from shud_tpu.core.pallas_edge import _interpret_default
-
-        interp = (interpret if interpret is not None
-                  else _interpret_default())
-        ebm = sm.edge_blocks
-        for f in _EB_FIELDS:
-            v = getattr(ebm, f, None)
-            if v is None and f == "used":
-                # pre-round-4 pickled partitions: all-shifts-used masks
-                v = np.ones(
-                    (sm.p, ebm.nb, ebm.k_hi - ebm.k_lo + 1), np.int32)
-            a = np.asarray(v)
-            halo[f"eb_{f}"] = jnp.asarray(
-                a, jnp.int32 if a.dtype.kind in "iu" else jnp.float32)
     lake_tbl = {}
     if sm.num_lake > 0:
         lake_tbl = {
@@ -830,15 +534,6 @@ def make_sharded_rhs(sm: ShardedMesh, devices=None, close_boundary=True,
     y_spec = {"sf": P(AXIS), "us": P(AXIS), "gw": P(AXIS),
               "riv": P(AXIS), "lake": P()}
     fs_cell_spec = P(AXIS)
-
-    try:
-        from jax import shard_map as _shard_map
-
-        def shard_map(f, **kw):  # jax>=0.8 renamed check_rep -> check_vma
-            kw["check_vma"] = kw.pop("check_rep", False)
-            return _shard_map(f, **kw)
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
 
     _DIAG_CELL = ("q_infil", "q_exfil", "q_rech", "q_surf_tot", "q_sub_tot",
                   "q_e2r_surf", "q_e2r_sub", "es", "eu", "eg", "tu", "tg",
@@ -886,22 +581,9 @@ def make_sharded_rhs(sm: ShardedMesh, devices=None, close_boundary=True,
                     "fs": fs_obj, "ele_ybc": fsc_1["ele_ybc"],
                     "ele_qbc": fsc_1["ele_qbc"], "ele_qss": fsc_1["ele_qss"],
                 }
-                if use_pallas:
-                    from shud_tpu.core.pallas_edge import EdgeBlocks
-
-                    eb_l = EdgeBlocks(
-                        blk=ebm.blk, nb=ebm.nb, bc=ebm.bc,
-                        num_ele=ebm.num_ele,
-                        k_lo=ebm.k_lo, k_hi=ebm.k_hi,
-                        use_skip=getattr(ebm, "use_skip", False),
-                        **{f: halo_1[f"eb_{f}"] for f in _EB_FIELDS},
-                    )
-                    pk = (eb_l, interp)
-                else:
-                    pk = None
                 out = _local_rhs(
                     plan, cell_1, edge_1, seg_1, riv_1, lake_1, halo_1, t_l,
-                    y_1, fs_local, fsr_1, close_boundary, pk=pk, parts=parts,
+                    y_1, fs_local, fsr_1, close_boundary,
                     want_diag=want_diag,
                 )
                 dy = out[0] if want_diag else out
@@ -922,7 +604,7 @@ def make_sharded_rhs(sm: ShardedMesh, devices=None, close_boundary=True,
             diag_spec = {k: P(AXIS)
                          for k in _DIAG_CELL + _DIAG_EDGE + _DIAG_RIV}
             diag_spec.update({k: P() for k in _DIAG_LAKE})
-            return shard_map(
+            return jax.shard_map(
                 body, mesh=mesh,
                 in_specs=(
                     shard_specs["cell"], shard_specs["edge"],
@@ -934,7 +616,7 @@ def make_sharded_rhs(sm: ShardedMesh, devices=None, close_boundary=True,
                     y_spec, P(),
                 ),
                 out_specs=(y_spec, diag_spec) if want_diag else y_spec,
-                check_rep=False,
+                check_vma=False,
             )(cellp, edgep, segp, rivp, halop, lakep, fs_cell, fs_rivp, y,
               jnp.asarray(t))
 

@@ -2,7 +2,7 @@
 
 Replaces SUNDIALS CVODE (BDF + matrix-free SPGMR Newton–Krylov; reference
 configuration at ``src/Equations/cvode_config.cpp:149-197``) with a
-TPU-native design:
+jittable design:
 
 * variable-step, variable-order BDF(1,2,3) with history carried across
   solver windows (like CVODE, the method does NOT restart at forcing
@@ -114,8 +114,7 @@ def _gmres(matvec, b, m):
     with incremental Givens rotations, x0 = 0.  m is small and static (the
     SPGMR default is 5), so everything unrolls at trace time into fused
     vector ops plus a handful of scalars; the dot products are the only
-    global reductions.  (No LAPACK-style ops — keeps the TPU lowering
-    simple.)"""
+    global reductions.  (No LAPACK-style ops.)"""
     leaves = jax.tree_util.tree_leaves(b)
     dtype = leaves[0].dtype
     beta = jnp.sqrt(tdot(b, b))
@@ -204,7 +203,7 @@ def _newton(f, t_new, y_guess, c0, bh, ewt, cfg: SolverConfig):
 
 @partial(jax.jit, static_argnums=(0, 4, 5))
 def solve_to(f, state: BDFState, tout, params, cfg: SolverConfig,
-             quad_fn=None, ewt_scale=None) -> BDFState:
+             quad_fn=None) -> BDFState:
     """Advance the ODE to ``tout`` — one ``CVode(CV_NORMAL)`` equivalent.
     ``f(t, y, params)`` must be jit-pure.
 
@@ -212,13 +211,7 @@ def solve_to(f, state: BDFState, tout, params, cfg: SolverConfig,
     accumulated as ``quad += h * quad_fn(t_new, y_new)`` on each accepted
     step — the reference's ``SHUD_WB_DIAG_QUAD`` CV_ONE_STEP integration
     (WaterBalanceDiag.cpp / shud.cpp:116-152), but inside the jitted
-    solve.
-
-    ``ewt_scale``: optional pytree (same structure as ``y``) multiplied
-    into the WRMS error weights.  Used by padded state layouts (the Pallas
-    megakernel's blocked Z array) to zero padding lanes out of the norm and
-    rescale for the padded length, so the effective tolerance matches the
-    unpadded layout exactly."""
+    solve."""
     dtype = state.t.dtype
     tout = jnp.asarray(tout, dtype=dtype)
 
@@ -236,8 +229,6 @@ def solve_to(f, state: BDFState, tout, params, cfg: SolverConfig,
 
     def step_body(s: BDFState):
         ewt = tewt(s.y, cfg.rtol, cfg.atol)
-        if ewt_scale is not None:
-            ewt = tmap(lambda w, m: w * m, ewt, ewt_scale)
         h = jnp.minimum(jnp.minimum(s.h, cfg.h_max), tout - s.t)
         h = jnp.maximum(h, cfg.h_min)
         tau = s.h_prev

@@ -1,16 +1,15 @@
 """Cell-numbering locality tools.
 
-The Pallas edge kernel (``shud_tpu.core.pallas_edge``) and, more generally,
-any banded/blocked access pattern require the mesh's graph bandwidth
-(max |neighbour_id - cell_id|) to be small.  SHUD input meshes carry whatever
+Neighbour gathers stay local in memory when the mesh's graph bandwidth
+(max |neighbour_id - cell_id|) is small.  SHUD input meshes carry whatever
 numbering the mesh generator produced; these helpers renumber cells with
 Reverse Cuthill–McKee (the classic bandwidth-minimising BFS ordering) at the
 ``ProjectInput`` level, so the whole downstream pipeline (build_mesh, golden
 comparisons, outputs) sees a consistent renumbered watershed.
 
-The reference has no analogue (its per-cell loops are index-order agnostic);
-this is TPU-design territory: locality of the cell axis is what turns the
-neighbour gather into sequential HBM traffic.
+The reference has no analogue (its per-cell loops are index-order
+agnostic); locality of the cell axis is what turns the neighbour gather
+into near-sequential memory traffic.
 """
 
 from __future__ import annotations
@@ -18,6 +17,15 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+
+def graph_bandwidth(nabr: np.ndarray) -> int:
+    """max |neighbour_id - cell_id| over the [Ne,3] 0-based adjacency
+    (-1 = none); 0 for a mesh with no neighbours."""
+    nabr = np.asarray(nabr)
+    i = np.broadcast_to(np.arange(nabr.shape[0])[:, None], nabr.shape)
+    has = nabr >= 0
+    return int(np.abs(nabr - i)[has].max()) if has.any() else 0
 
 
 def rcm_permutation(nabr: np.ndarray) -> np.ndarray:

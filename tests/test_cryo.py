@@ -133,10 +133,10 @@ def test_frozen_season_driver_e2e():
         inp.control.cryosphere = int(cryo)
         sim = FusedSimulation.create("synthetic", inp=inp)
         ne = sim.md.num_ele
-        y0 = np.asarray(sim.y_dev())
+        y0 = np.asarray(sim.bdf.y)
         sim.advance_interval(1440.0)
         sim.advance_interval(1440.0)
-        y = np.asarray(sim.y_dev())
+        y = np.asarray(sim.bdf.y)
         dgw = np.abs(y[2 * ne : 3 * ne] - y0[2 * ne : 3 * ne])
         return dgw
 

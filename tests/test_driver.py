@@ -214,22 +214,45 @@ def test_per_edge_flux_channels(tmp_path):
     np.testing.assert_allclose(surf_sum, tot_surf[0], rtol=1e-10, atol=1e-12)
 
 
-def test_compile_cache_wiring(tmp_path):
-    """--compile-cache wires jax's persistent compilation cache: a compiled
-    program lands on disk and a config round-trip restores the default."""
-    from shud_tpu.cli import _setup_compile_cache
+@pytest.mark.parametrize("mode", ["env", "checkout", "off"])
+def test_compile_cache_wiring(tmp_path, monkeypatch, mode):
+    """--compile-cache wires jax's persistent compilation cache:
+    $JAX_COMPILATION_CACHE_DIR wins when set (and a compiled program lands
+    there), the default is the fixed <checkout>/.jax_cache, and 'off'
+    disables the cache."""
+    from shud_tpu import cli
 
+    old_dir = jax.config.jax_compilation_cache_dir
+    old_on = jax.config.jax_enable_compilation_cache
     cc = str(tmp_path / "cc")
-    old = jax.config.jax_compilation_cache_dir
     try:
-        got = _setup_compile_cache(cc, min_compile_secs=0.0)
-        assert got == cc and jax.config.jax_compilation_cache_dir == cc
-        jax.jit(lambda x: jnp.sin(x * 2).sum())(
-            jnp.arange(4096.0)).block_until_ready()
-        assert os.path.isdir(cc) and os.listdir(cc), "no cache entry written"
-        assert _setup_compile_cache("off") is None
+        if mode == "env":
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", cc)
+            # the environment wins over an explicit directory
+            got = cli.setup_compile_cache(str(tmp_path / "other"),
+                                          min_compile_secs=0.0)
+            assert got == cc and jax.config.jax_compilation_cache_dir == cc
+            jax.jit(lambda x: jnp.sin(x * 3).sum())(
+                jnp.arange(4096.0)).block_until_ready()
+            assert os.listdir(cc), "no cache entry written"
+            assert not os.path.exists(tmp_path / "other")
+        elif mode == "checkout":
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            repo = os.path.dirname(os.path.dirname(os.path.abspath(
+                __file__)))
+            expect = os.path.join(repo, ".jax_cache")
+            assert cli.CHECKOUT_CACHE == expect
+            got = cli.setup_compile_cache()
+            assert got == expect
+            assert jax.config.jax_compilation_cache_dir == expect
+            assert jax.config.jax_enable_compilation_cache
+        else:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", cc)
+            assert cli.setup_compile_cache("off") is None
+            assert not jax.config.jax_enable_compilation_cache
     finally:
-        jax.config.update("jax_compilation_cache_dir", old)
+        jax.config.update("jax_compilation_cache_dir", old_dir)
+        jax.config.update("jax_enable_compilation_cache", old_on)
 
 
 def test_cli_dummy_with_shards(tmp_path):

@@ -6,8 +6,6 @@ reference after 1000 solver steps.  The f64 path is oracle-pinned
 local-datum path against f64 over >= 1000 adaptive steps on every
 watershed — acceptance max |Δhead| < 0.05 m (0.5% of a 10 m aquifer;
 measured headroom ~2-3x, see docs/VALIDATION.md "f32 accuracy").
-The TPU megakernel numbers are recorded by tools/f32_accuracy.py on the
-real chip; here the XLA f32 path runs (same local-datum formulation).
 """
 
 import numpy as np
@@ -39,7 +37,7 @@ def _run_pair(project, days):
                                      float_dtype=fd, day_end=days + 1.0)
         for _ in range(int(days)):
             sim.advance_interval(1440.0)
-        ys[fd] = np.asarray(sim.y_np(), dtype=np.float64)
+        ys[fd] = np.asarray(sim.bdf.y, dtype=np.float64)
         steps[fd] = int(sim.bdf.nsteps)
     md = sim.md
     ne, nr, nl = md.num_ele, md.num_riv, md.num_lake

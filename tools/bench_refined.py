@@ -23,23 +23,16 @@ def main():
     levels = int(sys.argv[1]) if len(sys.argv) > 1 else 5
     n_win = int(sys.argv[2]) if len(sys.argv) > 2 else 24
 
-    import jax
-    import jax.numpy as jnp
-
     import shud_tpu  # noqa: F401
     from shud_tpu.driver.fused import FusedSimulation
     from shud_tpu.io.project import load_project
     from shud_tpu.utils.refine import refine_project
 
-    on_tpu = any(d.platform == "tpu" for d in jax.devices())
-    fd = jnp.float32 if on_tpu else jnp.float64
-
     t0 = time.time()
     inp = refine_project(load_project("ccw", base="/root/reference"), levels)
     ne = inp.tri.shape[0]
     if ne >= 16384:
-        # RCM renumbering bounds the graph bandwidth so the fused Pallas
-        # edge kernel's blocked windows apply (docs/PERF.md)
+        # RCM renumbering keeps each cell's neighbours close in memory
         from shud_tpu.utils.reorder import localize_project
 
         inp, _perm = localize_project(inp)
@@ -47,11 +40,8 @@ def main():
           f"(prep {time.time()-t0:.1f}s)", flush=True)
 
     t0 = time.time()
-    sim = FusedSimulation.create("ccw", base="/root/reference", inp=inp,
-                                 float_dtype=fd)
-    print(f"build+device: {time.time()-t0:.1f}s "
-          f"(pallas_edges={sim.dm.edge_blocks is not None}, "
-          f"mega={sim.use_mega})", flush=True)
+    sim = FusedSimulation.create("ccw", inp=inp)
+    print(f"build+device: {time.time()-t0:.1f}s", flush=True)
 
     # warmup: compile (n_windows is static -> warm with the bench shape)
     win = sim.inp.control.solver_step

@@ -61,7 +61,7 @@ def _heihe_patched_ws() -> str:
     Upstream heihe is malformed: `.sp.att` references land-cover types
     13/14 but `tsd.lai` ships only 11 data columns, so the reference's
     own forcing path reads out of bounds (TimeSeriesData::getX).  The
-    TPU loader clamps the LC index to the last available column
+    JAX loader clamps the LC index to the last available column
     (landsurface.py); padding the missing columns with copies of the
     LAST column makes the reference read exactly what the clamp reads,
     so forced-RHS fixtures can be generated for heihe too."""

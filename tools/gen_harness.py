@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Emit the oracle harness C++ source to stdout (used by build_oracle.sh)."""
 HARNESS = r"""// Oracle harness: expose the reference model's RHS and intermediates via a C ABI
-// so Python (ctypes) can generate golden data for the TPU reimplementation tests.
+// so Python (ctypes) can generate golden data for the JAX reimplementation tests.
 #include <cstring>
 #include <cstdio>
 #include <cstdlib>

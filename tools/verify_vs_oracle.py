@@ -256,7 +256,7 @@ def main():
         return rhs(mesh, slc, tt, yy)
 
     y_ref = o.y0()
-    y_tpu = jnp.asarray(np.asarray(sim.bdf.y), jnp.float64)
+    y_jax = jnp.asarray(np.asarray(sim.bdf.y), jnp.float64)
     t = cs.start_time
     t0 = time.time()
     nwin = 0
@@ -279,23 +279,23 @@ def main():
             o.et(t, tout)
         for k in range(n_sub):
             y_ref = be.step(t + k * h, y_ref, h)
-        _, y_tpu = fixed_bdf1(f, y_tpu, t, (sim.dm, fs), h, n_sub,
+        _, y_jax = fixed_bdf1(f, y_jax, t, (sim.dm, fs), h, n_sub,
                               newton_iters=4)
         t = tout
         nwin += 1
         if nwin in (1, 3) or nwin % 36 == 0:
-            d = float(np.max(np.abs(np.asarray(y_tpu) - y_ref)))
+            d = float(np.max(np.abs(np.asarray(y_jax) - y_ref)))
             print(f"  t={t/1440:.2f} d: max|Δ|={d:.3e} "
                   f"(oracle nfe={be.nfe}, {time.time()-t0:.0f}s)", flush=True)
 
-    y_tpu = np.asarray(y_tpu)
+    y_jax = np.asarray(y_jax)
     names = [("surface ponding", 0, ne), ("unsat storage", ne, 2 * ne),
              ("GW head", 2 * ne, 3 * ne), ("river stage", 3 * ne, 3 * ne + nr)]
     if nl:
         names.append(("lake stage", 3 * ne + nr, 3 * ne + nr + nl))
     ok = True
     for label, a, b in names:
-        d = float(np.abs(y_tpu[a:b] - y_ref[a:b]).max())
+        d = float(np.abs(y_jax[a:b] - y_ref[a:b]).max())
         status = "PASS" if d <= tol else "FAIL"
         ok &= d <= tol
         print(f"  max |Δ {label}|: {d:.3e} m  [{status} @ {tol:g}]")
